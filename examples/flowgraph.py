@@ -116,10 +116,6 @@ def make_blocks(geom):
 
 
 def main() -> int:
-    import jax
-
-    if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-        jax.config.update("jax_platforms", "cpu")
     from mercury_tpu.core.geometry import build_geometry
 
     g = build_geometry(9, with_pre_eq=False)

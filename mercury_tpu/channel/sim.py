@@ -30,6 +30,39 @@ def awgn_passband(key, frame: jnp.ndarray, sigma: float, delay: int,
     return buf.at[:, delay:delay + n].add(frame)
 
 
+def shift_carrier(pb: jnp.ndarray, fs: float, offset_hz) -> jnp.ndarray:
+    """Real passband [B, n] with every row's spectrum moved by offset_hz[b]
+    (a carrier offset): the analytic signal times e^{j*2*pi*f*t}, real
+    part. Exact for any offset, unlike apply_cfo's whole-bin roll."""
+    n = pb.shape[-1]
+    h = np.zeros(n)
+    h[0] = 1.0
+    h[1: (n + 1) // 2] = 2.0
+    if n % 2 == 0:
+        h[n // 2] = 1.0
+    xa = jnp.fft.ifft(jnp.fft.fft(pb, axis=-1) * h, axis=-1)
+    t = jnp.arange(n, dtype=pb.dtype) / fs
+    f = jnp.asarray(offset_hz, pb.dtype).reshape(-1, 1)
+    return jnp.real(xa * jnp.exp(2j * np.pi * f * t)).astype(pb.dtype)
+
+
+def capture_batch(key, frames: jnp.ndarray, delays, buffer_len: int,
+                  sigma: float, fs: float = 48000.0,
+                  cfo_hz=None) -> jnp.ndarray:
+    """Capture windows [B, buffer_len]: frame b placed at delays[b] in
+    silence, optionally shifted by a carrier offset cfo_hz[b]
+    (shift_carrier), plus white noise of std sigma everywhere — the
+    per-row generalization of awgn_passband."""
+    frames = jnp.asarray(frames)
+    b, n = frames.shape
+    zero = jnp.zeros((buffer_len,), frames.dtype)
+    buf = jax.vmap(lambda f, d: jax.lax.dynamic_update_slice(zero, f, (d,)))(
+        frames, jnp.asarray(delays, jnp.int32))
+    if cfo_hz is not None:
+        buf = shift_carrier(buf, fs, cfo_hz)
+    return buf + sigma * jax.random.normal(key, (b, buffer_len), frames.dtype)
+
+
 def sigma_for_esn0(esn0_db: float) -> float:
     """OFDM convention (reference passband_test_EsN0): sigma = 10^(-EsN0/20).
     The reference adds noise with amplitude sigma/sqrt(2) per real sample."""

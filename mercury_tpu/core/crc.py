@@ -3,7 +3,7 @@
 For the jit-compiled TX/RX paths the CRC is precompiled into an affine GF(2)
 operator over the frame's bit vector (CRC is linear for fixed length):
   crc_bits(x) = A @ x ⊕ c0  (mod 2)
-so appending/checking the CRC is a small matmul — no bit-serial loop on TPU.
+so appending/checking the CRC is a small matmul — no bit-serial loop.
 
 Bit layout matches the reference's byte_to_bit (LSB first within each byte,
 misc.cc:93-105); the appended 16 bits are [lsB bits, msB bits], each LSB first

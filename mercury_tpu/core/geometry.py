@@ -1,7 +1,7 @@
 """Static per-mode geometry: every data-dependent structure in the reference
 modem (pilot lattice, preamble mask, interleaver walks, channel-estimation
 interpolation paths, LDPC graph) is *static per mode*, so it is precomputed
-here on host into index maps and dense linear operators that the TPU compute
+here on host into index maps and dense linear operators that the device compute
 path consumes as constants.
 
 Numerology mirrors the reference defaults:

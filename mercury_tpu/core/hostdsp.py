@@ -3,7 +3,7 @@
 These mirror the reference signal chain exactly and are used (a) to build
 static per-mode artifacts at geometry-build time (the pre-equalization
 channel probe needs a full TX->RX round trip), and (b) as an oracle in tests.
-The TPU compute path lives in mercury_tpu.dsp / mercury_tpu.modem; this module
+The device compute path lives in mercury_tpu.dsp / mercury_tpu.modem; this module
 is never on the hot path.
 
 Reference: source/physical_layer/ofdm.cc, fir_filter.cc.

@@ -9,7 +9,7 @@ middle tier: the same sections/keys ([Station] MyCallsign/RadioType,
 GearShift/InitialConfig/RobustMode/LinkTimeout/..., [Modem]
 LDPCIterationsMax/CoarseFreqSync, [PTT] OnDelayMs/OffDelayMs/PilotTone*),
 minus the sound-card/GUI-window keys that have no analogue in a headless
-TPU deployment (an [Audio] Transport key replaces the device selection).
+accelerator deployment (an [Audio] Transport key replaces the device selection).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Renders the same live feeds the GUI shows (gui_main.cc RenderGUI: waterfall
 with jet colormap, constellation scatter, VU meters, SNR/CFO/throughput
-readouts, TX/RX state) as ANSI text, so a modem running over SSH on a TPU
+readouts, TX/RX state) as ANSI text, so a modem running over SSH on a GPU
 host has the reference's visual feedback without a display stack.
 
 All render functions are pure string builders (testable without a tty);

@@ -1,4 +1,4 @@
-"""Batched, statically-shaped DSP primitives for the TPU compute path.
+"""Batched, statically-shaped DSP primitives for the device compute path.
 
 Every function is shape-polymorphic over a leading batch axis and jit-safe.
 Semantics match the reference implementations cited per function; the layout
@@ -93,7 +93,7 @@ def _fir_toeplitz(taps_key: bytes, taps: np.ndarray, stride: int,
     """Banded Toeplitz operator T [W, K] with W = (K-1)*stride + ntaps
     (rounded up to the lane width), T[i, k] = taps[ntaps-1 - (i - k*stride)]
     where in range: a block of K decimated FIR outputs is then one matmul
-    `window @ T` instead of a 129-tap VPU loop — the FIR rides the MXU."""
+    `window @ T` instead of a 129-tap loop — the FIR runs as a matmul."""
     key = (taps_key, stride, k_blk)
     t = _toeplitz_cache.get(key)
     if t is None:
@@ -136,7 +136,7 @@ def _valid_windows(y: jnp.ndarray, w: int, stride: int, n_out: int,
 def _fir_decimate_valid_mm(y: jnp.ndarray, taps, stride: int,
                            n_out: int, k_blk: int = 128) -> jnp.ndarray:
     """out[m] = sum_u taps[ntaps-1-u] * y[m*stride + u] for m < n_out,
-    computed as blocked banded matmuls (MXU path). Real y; real or complex
+    computed as blocked banded matmuls. Real y; real or complex
     taps (complex taps -> complex output from one real windows tensor)."""
     taps_np = np.asarray(taps)
     b = y.shape[0]
@@ -161,7 +161,7 @@ def _fir_decimate_valid_mm(y: jnp.ndarray, taps, stride: int,
 
 def fir_decimate_mm(y: jnp.ndarray, taps, stride: int,
                     n_out: int) -> jnp.ndarray:
-    """Complex/real wrapper over the MXU decimating FIR (VALID alignment:
+    """Complex/real wrapper over the matmul decimating FIR (VALID alignment:
     y[k] corresponds to x[start - center + k], like fir_decimate_segment)."""
     if jnp.iscomplexobj(y):
         return (fir_decimate_mm(y.real, taps, stride, n_out)
@@ -171,7 +171,7 @@ def fir_decimate_mm(y: jnp.ndarray, taps, stride: int,
 
 def fir_same_strided_mm(x: jnp.ndarray, taps, stride: int) -> jnp.ndarray:
     """fir_same_strided computed via the blocked banded matmul — identical
-    values, MXU instead of VPU. Preferred on TPU backends."""
+    values, as one matmul."""
     if jnp.iscomplexobj(x):
         return (fir_same_strided_mm(x.real, taps, stride)
                 + 1j * fir_same_strided_mm(x.imag, taps, stride))
@@ -234,7 +234,7 @@ def corr_valid_mm_multi(x: jnp.ndarray, filt: np.ndarray, n_out: int,
                         k_blk: int = 128,
                         mm_dtype=None) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Sliding correlations of one complex signal against F complex filters
-    on the MXU: c[b, f, j] = sum_t x[b, j+t] * filt[f, t] for j < n_out.
+    as matmuls: c[b, f, j] = sum_t x[b, j+t] * filt[f, t] for j < n_out.
 
     x: [B, L] complex; filt: [F, S] complex (host numpy — pass the
     conjugate for a matched filter). Returns (re, im) each [B, F, n_out]
@@ -266,9 +266,8 @@ def corr_valid_mm_multi(x: jnp.ndarray, filt: np.ndarray, n_out: int,
     tr, ti = (jnp.asarray(t) for t in t_ops)
     wr, wi = jnp.real(win), jnp.imag(win)
     if mm_dtype is not None:
-        # reduced-precision MXU inputs (f32 accumulation): ~0.1% score noise,
-        # several x faster than f32 matmuls on TPU — fine for arbitration
-        # scores, do not use on the decode data path
+        # reduced-precision inputs (f32 accumulation): ~0.1% score noise —
+        # fine for arbitration scores, do not use on the decode data path
         tr, ti = tr.astype(mm_dtype), ti.astype(mm_dtype)
         wr, wi = wr.astype(mm_dtype), wi.astype(mm_dtype)
     mm = lambda a, t: jnp.einsum("bnw,wk->bnk", a, t,
@@ -289,8 +288,8 @@ def box_sum_valid(x: jnp.ndarray, length: int, n_out: int,
     """Strided sliding-window sums S[j] = sum_{k<length} x[..., j*stride+k]
     for j < n_out.
 
-    use_mm routes through the banded-Toeplitz matmul (MXU path — preferred on
-    TPU); otherwise a prefix-sum difference (faster on CPU, but subject to
+    use_mm routes through the banded-Toeplitz matmul (the accelerator
+    route); otherwise a prefix-sum difference (faster on CPU, but subject to
     float32 cancellation on long buffers). Complex x is handled as two real
     passes.
     """
@@ -355,100 +354,13 @@ _dft_mat_cache: dict = {}
 
 
 def _karatsuba_cmm(pr, pi, qr, qi):
-    """Karatsuba 3-matmul complex multiply (25% fewer MXU flops than the
+    """Karatsuba 3-matmul complex multiply (25% fewer matmul flops than the
     4-matmul form): re = k1-k2, im = k1+k3 with k1 = pr(qr+qi),
     k2 = (pi+pr)qi, k3 = (pi-pr)qr."""
     k1 = pr @ (qr + qi)
     k2 = (pi + pr) @ qi
     k3 = (pi - pr) @ qr
     return k1 - k2, k1 + k3
-
-
-def _fft_mm_mats(n1: int, n2: int, inverse: bool, mm_dtype) -> tuple:
-    """Host-precomputed DFT factor matrices for the Cooley-Tukey matmul FFT:
-    (W1 [n1,n1], twiddle [n2,n1], W2 [n2,n2]) as (re, im) float pairs."""
-    key = (n1, n2, bool(inverse), np.dtype(mm_dtype).name)
-    mats = _dft_mat_cache.get(key)
-    if mats is None:
-        n = n1 * n2
-        sgn = -1.0 if not inverse else 1.0
-        w1 = np.exp(sgn * 2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1)
-        tw = np.exp(sgn * 2j * np.pi * np.outer(np.arange(n2), np.arange(n1)) / n)
-        w2 = np.exp(sgn * 2j * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2)
-        if inverse:
-            w2 = w2 / n
-        mats = tuple(np.ascontiguousarray(p).astype(mm_dtype)
-                     for m in (w1, tw, w2) for p in (m.real, m.imag))
-        _dft_mat_cache[key] = mats
-    return mats
-
-
-def _fft_mm_factor(n: int) -> tuple[int, int]:
-    """Pick n = n1*n2 with both factors as close to 128 as possible (MXU
-    tile size). Requires n to be a multiple of reasonable powers of two."""
-    best = None
-    for n1 in range(1, n + 1):
-        if n % n1:
-            continue
-        n2 = n // n1
-        cost = abs(n1 - 128) + abs(n2 - 128)
-        if best is None or cost < best[0]:
-            best = (cost, n1, n2)
-    return best[1], best[2]
-
-
-def fft_mm(x: jnp.ndarray, n: int | None = None, inverse: bool = False,
-           mm_dtype=jnp.float32) -> jnp.ndarray:
-    """Batched 1-D (i)FFT along the last axis as two MXU matmul passes.
-
-    Cooley-Tukey split n = n1*n2: with x[n1_idx*n2 + n2_idx],
-      X[k1 + n1*k2] = sum_{n2_idx} W_n^{±n2_idx k1} W_{n2}^{±n2_idx k2}
-                      (sum_{n1_idx} x[n1_idx*n2 + n2_idx] W_{n1}^{±n1_idx k1})
-    i.e. a [*, n2, n1] @ [n1, n1] matmul, a twiddle product, and a
-    [*, n1, n2] @ [n2, n2] matmul. ~30x the flops of radix-2, but the MXU
-    executes them orders of magnitude faster than XLA's generic TPU FFT
-    lowering, which bounds the deep-sync whole-buffer matched filter
-    (A/B in docs/throughput_r3.json deep rows). Numerically: f32 matmuls
-    keep |err| ~1e-6 relative on CPU (TPU default matmul precision is
-    bf16-multiply/f32-accumulate — fine where scores only arbitrate);
-    mm_dtype=bfloat16 halves the matmul cost where that is acceptable.
-
-    Matches jnp.fft.fft(x, n)/jnp.fft.ifft(x, n) up to dtype rounding.
-    """
-    if mm_dtype is None:
-        # None means "no cast requested" — factor matrices are f32, so f32
-        # is the no-cast behavior (a literal astype(None) would promote the
-        # input planes to float64, which x32/TPU backends reject)
-        mm_dtype = jnp.float32
-    if n is None:
-        n = x.shape[-1]
-    if x.shape[-1] < n:
-        pad = [(0, 0)] * (x.ndim - 1) + [(0, n - x.shape[-1])]
-        x = jnp.pad(x, pad)
-    elif x.shape[-1] > n:
-        x = x[..., :n]
-    n1, n2 = _fft_mm_factor(n)
-    w1r, w1i, twr, twi, w2r, w2i = (
-        jnp.asarray(m).astype(mm_dtype)
-        for m in _fft_mm_mats(n1, n2, inverse, np.float32))
-    batch = x.shape[:-1]
-    cmm3 = _karatsuba_cmm
-    xr = jnp.real(x).astype(mm_dtype).reshape(*batch, n1, n2)
-    xi = jnp.imag(x).astype(mm_dtype).reshape(*batch, n1, n2)
-    xr = jnp.swapaxes(xr, -1, -2)            # [.., n2, n1]
-    xi = jnp.swapaxes(xi, -1, -2)
-    mr, mi = cmm3(xr, xi, w1r, w1i)
-    ar = mr * twr - mi * twi
-    ai = mr * twi + mi * twr
-    ar = jnp.swapaxes(ar, -1, -2)            # [.., k1, n2]
-    ai = jnp.swapaxes(ai, -1, -2)
-    cr, ci = cmm3(ar, ai, w2r, w2i)
-    cr = cr.astype(jnp.float32)
-    ci = ci.astype(jnp.float32)
-    # X[k1 + n1*k2] <- C[k1, k2]: transpose to [k2, k1] before flattening
-    cr = jnp.swapaxes(cr, -1, -2).reshape(*batch, n)
-    ci = jnp.swapaxes(ci, -1, -2).reshape(*batch, n)
-    return jax.lax.complex(cr, ci)
 
 
 def ofdm_mod(carriers: jnp.ndarray, pad_map, nfft: int, ngi: int) -> jnp.ndarray:
@@ -469,9 +381,8 @@ def ofdm_mod(carriers: jnp.ndarray, pad_map, nfft: int, ngi: int) -> jnp.ndarray
 def dft_mm(x: jnp.ndarray, n: int, inverse: bool = False,
            cols=None) -> jnp.ndarray:
     """Direct [.., n] @ [n, n] DFT as one Karatsuba complex-matmul triple —
-    the right shape for the per-symbol OFDM (I)FFT (n = Nfft = 256 fits the
-    MXU in two tiles; a radix split would only shrink an already-small
-    contraction). `cols` (host array) selects output bins, folding the
+    the right shape for the per-symbol OFDM (I)FFT (n = Nfft = 256 is one
+    matmul-sized contraction; a radix split would only shrink it further). `cols` (host array) selects output bins, folding the
     carrier depad gather into the DFT matrix columns — the demod then reads
     [.., Nofdm] and writes [.., Nc] with nothing in between.
 

@@ -1,8 +1,9 @@
-"""Batched LDPC encode/decode on TPU.
+"""Batched LDPC encode/decode on the accelerator.
 
 Encoder: the IRA back-substitution (reference: ldpc.cc:111-132) is linear over
 GF(2), so it is precompiled into a dense generator block G [P, K] and executed
-as a single matmul mod 2 — MXU-friendly and exactly equivalent.
+as a single matmul mod 2 — exactly equivalent (0/1 operands and integer
+sums are exact in every matmul precision, TF32 included).
 
 Decoder: sum-product (tanh/atanh) belief propagation, vectorized over a batch
 of codewords, mirroring the reference SPA message schedule
@@ -28,7 +29,7 @@ from mercury_tpu.fec.tables import LdpcCode, load_code
 
 
 def encode(code: LdpcCode, info_bits: jnp.ndarray) -> jnp.ndarray:
-    """info_bits [..., K] in {0,1} -> codeword [..., N]. Matmul on the MXU."""
+    """info_bits [..., K] in {0,1} -> codeword [..., N], as one matmul."""
     g = jnp.asarray(code.gen, dtype=jnp.float32)
     u = info_bits.astype(jnp.float32)
     parity = jnp.mod(u @ g.T, 2.0)
@@ -103,8 +104,8 @@ def _check_node_update(qe, c_mask, algo: str, alpha: float, beta: float):
     schedules. Returns R values masked to 0 on padded edges. The SPA branch is
     the reference's tanh/atanh update (ldpc_decoder_SPA.cc:127-210); min-sum
     is the normalized offset variant. Both are written argmin-, inf- and
-    float-sign-product-free: those forms SIGSEGV the TPU compiler inside a
-    while_loop at B > 1 (reproduced on v5e).
+    float-sign-product-free (integer-parity sign products), a form every
+    backend compiles inside a while_loop at B > 1.
     """
     b, p, _cw = qe.shape
     dt = qe.dtype
@@ -169,8 +170,8 @@ def decode(llr: jnp.ndarray, rate_num: int, max_iter: int = 50,
       beta: min-sum offset (ignored for SPA).
       alpha: min-sum normalization; None picks the calibrated per-rate value.
       msg_dtype: storage dtype for the Q/R message tensors (None = float32).
-        jnp.bfloat16 halves the HBM traffic of the edge-permutation gathers
-        that bind this loop on TPU (docs/roofline_r2.md); the check/variable
+        jnp.bfloat16 halves the device-memory traffic of the
+        edge-permutation gathers; the check/variable
         arithmetic still runs in float32 — only the carried state and the
         gathered operands are narrowed. BER impact is measured in
         tests/test_fec.py::test_bf16_messages_ber_close.
@@ -225,8 +226,8 @@ def decode(llr: jnp.ndarray, rate_num: int, max_iter: int = 50,
                       ).reshape(b, p, cw).astype(jnp.float32)
         r_vals = _check_node_update(qe, c_mask, algo, alpha, beta)
         # redistribute check messages to the variable side: gather via the
-        # inverse edge map on TPU (scatters are slow there), scatter on CPU
-        # (measured faster on host)
+        # inverse edge map on accelerators, scatter on CPU (measured faster
+        # on host)
         if jax.default_backend() == "cpu":
             r_flat = jnp.zeros((b, n * vw + 1), dtype=mdt)
             r_flat = r_flat.at[:, edge_flat.reshape(-1)].set(
@@ -267,10 +268,8 @@ def decode(llr: jnp.ndarray, rate_num: int, max_iter: int = 50,
 # Matmul-redistribution BP (flooding or layered schedule)
 #
 # The flooding decoder above moves its messages with 9,600-element edge
-# permutations; docs/roofline_r2.md measures those gathers at a ~0.4 ms/it
-# plateau that is insensitive to both message width (bf16: ~3%) and address
-# count (batch-minor: ~5%) — a fixed engine cost XLA cannot amortize. The
-# formulation below replaces BOTH redistribution directions with MXU matmuls
+# permutations (gathers). The
+# formulation below replaces BOTH redistribution directions with matmuls
 # against static one-hot edge-incidence matrices: gathering Q is
 # llr_tot @ Aᵀ and scattering the posterior delta is delta @ A, where
 # A[e, v] = 1 iff edge e touches variable v. One nonzero per row makes the
@@ -391,7 +390,7 @@ def decode_mm(llr: jnp.ndarray, rate_num: int, max_iter: int = 50,
 
     Same contract as `decode` (llr [B, N] -> bits, iters, ok) with the edge
     permutations of the flooding decoder replaced by one-hot incidence
-    matmuls on the MXU (see the block comment above), and an optional layered
+    matmuls (see the block comment above), and an optional layered
     schedule:
 
       n_layers=None  -> smallest balanced variable-disjoint partition

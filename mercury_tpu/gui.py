@@ -2,7 +2,7 @@
 
 The reference ships an ImGui/GLFW window (gui_main.cc:452-1124) with a jet
 waterfall (waterfall.cc:106-254), constellation scatter, VU meters and
-readout text. This is its TPU-repo counterpart on matplotlib: the same
+readout text. This is its counterpart here, on matplotlib: the same
 panels composed into one figure, usable three ways —
 
   * live window:      VisualMonitor().show() then .update(...) per chunk

@@ -1,7 +1,7 @@
 """Receive chain: passband capture buffer -> decoded payload, batched.
 
 Mirrors the reference receive_byte pipeline (telecom_system.cc:646-1518) with
-a TPU-first control structure: instead of a sequential trial loop with
+a batch-first control structure: instead of a sequential trial loop with
 data-dependent branches, the chain computes the Schmidl-Cox metric for every
 offset at once (sync.py), decodes at the best hypothesis, and handles retry
 policy by batching hypotheses. All stages are jit-compiled tensor programs;
@@ -92,16 +92,15 @@ class RxChain:
         # "pruned" (default): the whole-buffer known-preamble scan with the
         # CFO grid pruned 15 -> 30 Hz (17 -> 9 hypotheses wide) and every
         # hypothesis entering final arbitration directly — halves the
-        # dominant deep-MF kernel work; the <=15 Hz grid residual is inside
-        # Moose's +-23.4 Hz pull-in at decode, and threshold FER is
-        # unchanged at 1024 frames (docs/deep_c2f_r4.md). "c2f": scan
-        # nominates top-N candidates into the per-candidate refinement —
-        # same FER, but the refine growth costs more than the scan saves
-        # on-chip (kept for study). "full": round-3 behavior (15 Hz grid).
+        # whole-buffer scan's correlation work; the <=15 Hz grid residual
+        # is inside Moose's +-23.4 Hz pull-in at decode, and threshold FER
+        # is unchanged at 1024 frames. "c2f": scan nominates top-N
+        # candidates into the per-candidate refinement — same FER, kept
+        # for study. "full": round-3 behavior (15 Hz grid).
         self.deep_profile = deep_profile
-        # c2f tuning knobs (validated in docs/deep_c2f_r4.md): coarse-scan
-        # extra time decimation, coarse CFO grid spacing (Hz), and how many
-        # top (delay, CFO) rows the refine stage re-scores
+        # c2f tuning knobs: coarse-scan extra time decimation, coarse CFO
+        # grid spacing (Hz), and how many top (delay, CFO) rows the refine
+        # stage re-scores
         self._c2f_decim = 1
         self._c2f_grid_hz = 30.0
         self._c2f_topn = 4
@@ -109,20 +108,6 @@ class RxChain:
         self._c2f_refine_offsets = True   # add +-grid/2 to the refine bank
         # whole-buffer scan grid spacing for the pruned/full profiles
         self._deep_grid_hz = 30.0 if deep_profile == "pruned" else 15.0
-        # nomination-scan pruning (round 5): with the coherent re-score +
-        # pilot arbitration doing the final pick, the noncoherent whole-
-        # buffer scan only has to SURFACE the true start among topn peaks
-        # per CFO row — so its cost (kernel work ∝ grid rows × preamble
-        # symbols) can be pruned independently of sensitivity. None = all
-        # preamble symbols (round-4 behavior); validated settings in
-        # docs/deep_scan_r5.md.
-        self._deep_scan_lp = None
-        # bf16 transforms in the NONCOHERENT scan kernel (argmax path
-        # only; the cfg0 coherent surface stays f32). Default False: the
-        # chip A/B measured no reliable speedup over f32 at these shapes
-        # (docs/deep_scan_r5.json cfg3 rows bracket session noise) and f32
-        # keeps the scan numerics bit-comparable to round 4
-        self._deep_scan_bf16 = False
         # Coherent deep acquisition (round 5, docs/acq_floor_r5.md): the
         # noncoherent scan NOMINATES deep_topn distinct peaks per CFO row;
         # a fully-coherent re-score over a fine static CFO grid (inter-
@@ -134,7 +119,7 @@ class RxChain:
         # acquisition limit; cfg1-4's round-4 campaign already measured
         # passband == baseband with the cheap argmax arbitration
         # (docs/ber_r4b.json), so the coherent surface would be pure cost
-        # there (~30 ms/call at batch 256).
+        # there.
         if deep_coherent is None:
             deep_coherent = (not geom.spec.is_mfsk
                              and geom.spec.config == 0)
@@ -154,8 +139,8 @@ class RxChain:
         # misses (tools/acq_floor_r5.py) — letting the higher-energy pilot
         # metric arbitrate the whole deep shortlist walks cfg0 @ eff
         # -9.75 down 0.109 -> 0.098 (M=16) -> 0.090 (topn12/M=24) ->
-        # 0.082 (topn16/M=32) on identical realizations (CPU A/B ladder;
-        # chip confirm in docs/ber_r5.json)
+        # 0.082 (topn16/M=32) on identical realizations (CPU A/B ladder,
+        # docs/ber_r5.json)
         self._deep_pil_topm = 32
         if ldpc_algo not in ("spa", "minsum", "layered", "layered-minsum"):
             raise ValueError("ldpc_algo must be 'spa', 'minsum', 'layered' "
@@ -198,8 +183,8 @@ class RxChain:
         # the difference between missing and MEETING the documented
         # thresholds (cfg0 -10.0 / cfg1 -7.5 / cfg6 -1.5:
         # docs/ladder_floor_r4.md; FER <= flooding SPA at every other
-        # ladder point, docs/ldpc_layered_r3.md). 'spa'/'minsum' keep the
-        # flooding schedule (spa = the r2/r3 BER campaign decoder).
+        # ladder point, measured at 1024 frames in round 3). 'spa'/'minsum'
+        # keep the flooding schedule (spa = the r2/r3 BER campaign decoder).
         self.ldpc_algo = ldpc_algo
         if dd is None:
             # auto: decision-directed re-estimation pays where channel
@@ -377,7 +362,7 @@ class RxChain:
             # CFO-hypothesis selection operators: the per-hypothesis metric
             # (pilot variance) needs only the pilot cells, so instead of a
             # full FFT demod per hypothesis the pilots are extracted with a
-            # per-symbol partial DFT (MXU matmul): [S, maxP, Nfft] operator
+            # per-symbol partial DFT (a matmul): [S, maxP, Nfft] operator
             # + slot map back to pilot_cells order, plus the pilot-row slice
             # of the channel-estimation operator.
             s_of = g.pilot_cells // g.nc
@@ -454,8 +439,8 @@ class RxChain:
                 tp.reshape(g.nsymb, g.nofdm * g.interp), self.np_cdtype)
 
         # route the decimating FIRs through the banded-Toeplitz matmul on
-        # accelerator backends (MXU); the direct conv is faster on CPU
-        self._mxu_fir = jax.default_backend() != "cpu"
+        # accelerator backends; the direct conv is faster on CPU
+        self._mm_fir = jax.default_backend() != "cpu"
 
         ncheck = g.frame_bytes + 2
         a, c0 = crc_mod.crc_affine(ncheck)
@@ -544,7 +529,7 @@ class RxChain:
         passband at per-row delay, multiply by the matching slice of the
         precomputed oscillator constant, then run the polyphase decimating
         data FIR. Identical values to mix(pb,0) -> extract_frame_decimated,
-        but the full-buffer complex IQ array is never materialized in HBM."""
+        but the full-buffer complex IQ array is never materialized."""
         g = self.geom
         ntaps = self._fir_data.shape[0]
         center = (ntaps - 1) // 2
@@ -559,12 +544,12 @@ class RxChain:
             return jax.lax.dynamic_slice(row, (st,), (seg_len,))
 
         seg_pb = jax.vmap(slice_pb)(pb_pad, start)
-        if self._mxu_fir:
+        if self._mm_fir:
             # fold the mixer into complex FIR taps + an output-rate rotation:
             # one anchor value per row from the float64-phase oscillator
-            # table times a host-constant step vector (2D gathers from the
-            # table are pathologically slow on TPU) — the complex full-rate
-            # segment never exists (ops.fir_decimate_mix_mm)
+            # table times a host-constant step vector (one gather per row,
+            # not per sample) — the complex full-rate segment never exists
+            # (ops.fir_decimate_mix_mm)
             n_out = frame_interp // g.interp
             w_rad = 2 * np.pi * g.fc / g.fs
             step_key = ("mix_step", n_out, g.interp)
@@ -656,11 +641,11 @@ class RxChain:
                             ).astype(self.cdtype)
             y_est = y_pil * rot_p
             # HIGHEST precision: the estimation smoothing runs on noise-
-            # dominated pilots at threshold SNR — the TPU's default
-            # bf16-multiply matmul adds estimation noise exactly where the
-            # floor configs live (CPU f32 and TPU numerics disagreed at
-            # the borderline cfg0/-10 point); the operator is tiny, the
-            # cost is invisible next to the FIR/FFT stages
+            # dominated pilots at threshold SNR — a reduced-precision
+            # (bf16 or TF32) matmul adds estimation noise exactly where the
+            # floor configs live (it moved FER at the borderline cfg0/-10
+            # point); the operator is tiny, the cost is invisible next to
+            # the FIR/FFT stages
             hp = jax.lax.Precision.HIGHEST
             h = (jnp.matmul(y_est.real, self._est_op.T, precision=hp)
                  + 1j * jnp.matmul(y_est.imag, self._est_op.T, precision=hp))
@@ -756,7 +741,7 @@ class RxChain:
         """Decision-directed second demod pass: treat the re-encoded decoded
         codeword as pilots on EVERY data cell, re-estimate the channel with
         a weighted (symbol x carrier) box window — H = box(y x*)/box(|x|^2),
-        two small matmuls on the MXU — then re-equalize and re-demap.
+        two small matmuls — then re-equalize and re-demap.
         The timing ramp measured by the first pass is de-rotated before the
         window average and re-applied after, exactly as in grid_stats."""
         g = self.geom
@@ -1059,7 +1044,7 @@ class RxChain:
         def run(pb_buffer, stage: str = "full", sync_limit: int | None = None):
             """sync_limit (static, interp samples): only frame starts below
             this offset are eligible sync candidates — used by the
-            time-sharded receiver so a chip never claims the frame whose
+            time-sharded receiver so a device never claims the frame whose
             start belongs to its right neighbour's slice (the halo exists
             only to *complete* frames that start locally)."""
             b = pb_buffer.shape[0]
@@ -1071,7 +1056,7 @@ class RxChain:
             # (ops.fir_same_strided_mix_mm), so the real passband goes
             # straight into the strided matmul.
             ts_dec = g.interp
-            if self._mxu_fir:
+            if self._mm_fir:
                 bb_ts = ops.fir_same_strided_mix_mm(
                     pb_buffer.astype(self.real_dtype), self._fir_ts, ts_dec,
                     2 * np.pi * g.fc / g.fs, float(np.sqrt(2.0)))
@@ -1196,8 +1181,8 @@ class RxChain:
 
             # Coarse-to-fine deep acquisition (round 4): the round-3 deep
             # path scanned the WHOLE buffer at MF resolution over the full
-            # 15 Hz CFO grid (the single most expensive stage in the
-            # CONFIG_0-4 profile, docs/roofline_r3.json). The scan only
+            # 15 Hz CFO grid (the most expensive stage of CONFIG_0-4).
+            # The scan only
             # needs to NOMINATE the true start among the top few
             # candidates, not resolve it: scan at 2x extra decimation with
             # a 30 Hz grid (~4x less correlation work), take the top-N
@@ -1323,16 +1308,13 @@ class RxChain:
                 n_gd = n_ts // mf_s             # whole buffer at mf_d rate
                 win_g = (n_gd - lp * s_d) // 2
                 seg_g = bb_ts[..., : (2 * win_g + lp * s_d) * mf_s: mf_s]
-                # bf16 MXU transforms: the fused scan kernel sits at the
-                # f32 MXU bound (~4.7 ms of cfg1-4's 15.8 ms budget); the
-                # per-element ~0.4% bf16 transform noise is far below the
-                # score's decision margins at these configs' operating
-                # floors (chip FER A/B: docs/deep_scan_r5.md)
-                delay_g, score_g = sync.matched_filter_refine_bank(
-                    seg_g, jnp.zeros(b, jnp.int32), bank_g, win_g,
-                    use_mm=False,
-                    mm_dtype=(jnp.bfloat16 if self._deep_scan_bf16
-                              else None))                       # [B, H]
+                # float32 FFT correlation (cuFFT on the GPU): on an H100 it
+                # beat the matmul FFT this stage used before, 3.2 against
+                # 6.8 ms of device time at batch 256 (PERF.md, PR 1)
+                with jax.named_scope("noncoherent_scan"):
+                    delay_g, score_g = sync.matched_filter_refine_bank(
+                        seg_g, jnp.zeros(b, jnp.int32), bank_g, win_g,
+                        use_mm=False)                           # [B, H]
                 delays = jnp.concatenate([delays, delay_g.T * mf_d],
                                          axis=0)
                 scores = jnp.concatenate([scores, score_g.T], axis=0)
@@ -1343,18 +1325,13 @@ class RxChain:
                 # COHERENT whole-buffer acquisition (round 5 redesign): ONE
                 # matched-filter pass scores the FULL preamble coherently —
                 # inter-symbol phase included — at EVERY lag for every CFO
-                # row of a fine (4 Hz) static grid, through the same fused
-                # VMEM kernel as the old noncoherent scan (bank [F, 1,
-                # Lp*S_d]; ~1.7x its kernel work). Max-combining the CFO
-                # axis elementwise then gives the global coherent
-                # acquisition surface, and nomination is a single pooled
-                # top-M over it. This replaces BOTH the round-4 noncoherent
-                # nomination AND the round-5 per-candidate coherent
-                # re-score: per-candidate segment gathers lowered to
-                # element-rate TPU gathers (~1 ms per candidate, measured
-                # round 5 — the LDPC gather lesson), while this
-                # formulation keeps the whole surface in the MXU kernel
-                # and gathers only [B, M] scalars. It also removes the
+                # row of a fine (4 Hz) static grid (bank [F, 1, Lp*S_d]).
+                # Max-combining the CFO axis elementwise then gives the
+                # global coherent acquisition surface, and nomination is a
+                # single pooled top-M over it. This replaces BOTH the
+                # round-4 noncoherent nomination AND the round-5
+                # per-candidate coherent re-score, and gathers only [B, M]
+                # scalars. It also removes the
                 # nomination-bound misacquisitions outright: the true
                 # start no longer has to surface in any per-CFO-row
                 # shortlist (tools/acq_floor_r5.py: 6/9 residual misses
@@ -1372,8 +1349,9 @@ class RxChain:
                     tmpl_d * np.exp(-1j * (2 * np.pi / g.fs) * f_h * t_abs)
                     for f_h in grid_coh]).astype(self.np_cdtype)
                 bank_c1 = bank_coh.reshape(len(grid_coh), 1, lp * s_d)
-                smax, sarg = sync.coherent_scan_max(seg_g, bank_c1,
-                                                    win_g)     # [B, L]
+                with jax.named_scope("coherent_scan"):
+                    smax, sarg = sync.coherent_scan_max(seg_g, bank_c1,
+                                                        win_g)  # [B, L]
                 if sync_limit is not None:
                     lag_i = jnp.arange(smax.shape[-1]) * mf_d
                     smax = jnp.where(lag_i[None] >= sync_limit,
@@ -1394,9 +1372,10 @@ class RxChain:
                     * np.exp(-1j * (2 * np.pi / g.fs) * f_h
                              * np.arange(0, s_tmpl, mf_d))[None]
                     for f_h in grid_coh]).astype(self.np_cdtype)
-                score_p = sync.pilot_rescore(
-                    bb_ts, d_top, f_top, bank_pil, mf_s, ts_dec,
-                    lp * s_tmpl)                                # [B, M]
+                with jax.named_scope("pilot_arbitration"):
+                    score_p = sync.pilot_rescore(
+                        bb_ts, d_top, f_top, bank_pil, mf_s, ts_dec,
+                        lp * s_tmpl)                            # [B, M]
                 pick_m = jnp.argmax(score_p, axis=-1)           # [B]
                 delay = jnp.take_along_axis(d_top, pick_m[:, None],
                                             axis=1)[:, 0]

@@ -1,6 +1,6 @@
 """Synchronization: Schmidl-Cox time sync, Moose fine CFO, MFSK tone sync.
 
-TPU-native formulation: the reference's O(window x preamble) sliding
+Tensor formulation: the reference's O(window x preamble) sliding
 correlation (ofdm.cc:1735-1844) collapses into cumulative-sum algebra.  With
 S = (Ngi+Nfft)*R the per-window sums are differences of "comb" arrays
 C[i] = sum_l P[i + l*S] (P a prefix sum), so the correlation metric for EVERY
@@ -47,10 +47,9 @@ def schmidl_cox_metric(bb: jnp.ndarray, geom: ModeGeometry,
     (norm < 0.001 guard, ofdm.cc:1813-1816).
 
     The per-window sums are sliding box sums of the lag-product arrays; on
-    accelerators they run as banded-Toeplitz matmuls (ops.box_sum_valid MXU
-    path — measured ~5x faster than the prefix-sum scans on TPU v5e and free
-    of float32 prefix cancellation), combed over the preamble symbols with
-    `lp` shifted adds.
+    accelerators they run as banded-Toeplitz matmuls (ops.box_sum_valid
+    matmul path — free of the float32 cancellation of long prefix sums),
+    combed over the preamble symbols with `lp` shifted adds.
     """
     if use_mm is None:
         use_mm = jax.default_backend() != "cpu"
@@ -178,14 +177,7 @@ def topk_pooled(score: jnp.ndarray, start, topn: int,
     pooled = jnp.max(sp, axis=-1)
     inner = jnp.argmax(sp, axis=-1)
     k = min(topn, n_pool)
-    if jax.default_backend() == "tpu":
-        # lax.top_k lowers to a full variadic sort on TPU (element-rate);
-        # the TPU-optimized approximate top-k is exact enough for
-        # NOMINATION (recall 0.99 of pool peaks; the pilot arbitration
-        # re-scores every nominee anyway)
-        top_s, top_i = jax.lax.approx_max_k(pooled, k, recall_target=0.99)
-    else:
-        top_s, top_i = jax.lax.top_k(pooled, k)               # [..., N]
+    top_s, top_i = jax.lax.top_k(pooled, k)                   # [..., N]
     off = top_i * pool_w + jnp.take_along_axis(inner, top_i, axis=-1)
     if isinstance(start, jnp.ndarray) and start.ndim:
         off = off + start.reshape(start.shape + (1,) * (off.ndim - start.ndim))
@@ -197,10 +189,7 @@ def topk_pooled(score: jnp.ndarray, start, topn: int,
 def matched_filter_refine_bank(seg: jnp.ndarray, start: jnp.ndarray,
                                bank: np.ndarray, window: int,
                                use_mm: bool | None = None,
-                               use_fft_mm: bool | None = None,
-                               use_pallas: bool | None = None,
                                topn: int = 1, pool_w: int = 8,
-                               mm_dtype=None,
                                ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Matched-filter refinement against a bank of A template variants
     (e.g. CFO-alias rotations, host-precomputed) in one pass.
@@ -210,9 +199,9 @@ def matched_filter_refine_bank(seg: jnp.ndarray, start: jnp.ndarray,
     phase e^{jwd} differs), so data-independent CFO hypotheses move to the
     template side — one shared windows/FFT pass for the whole bank.
 
-    use_mm selects the correlation engine: banded-Toeplitz matmuls on the
-    MXU (TPU default — only the n_cand lags actually scored are computed)
-    or FFT correlation (CPU default — fewer flops, no MXU to feed).
+    use_mm selects the correlation engine: banded-Toeplitz matmuls
+    (accelerator default — only the n_cand lags actually scored are
+    computed) or FFT correlation (CPU default — fewer flops).
 
     seg: [B, 2*window + Lp*S]; start: absolute offset of seg[0];
     bank: [A, Lp, S] complex. Returns (delay [B, A], score [B, A]); with
@@ -221,16 +210,8 @@ def matched_filter_refine_bank(seg: jnp.ndarray, start: jnp.ndarray,
     used by the coherent deep-acquisition re-score to nominate more than
     one start hypothesis per CFO row.
     """
-    if use_mm is None:
-        use_mm = jax.default_backend() != "cpu"
-    if seg.dtype == jnp.complex128:
-        use_mm = False                   # the matmul path is f32-only
     a, lp, s = bank.shape
-    n_cand = 2 * window + 1
-    bank = np.asarray(bank)
-    score = bank_scores(seg, bank, window, use_mm=use_mm,
-                        use_fft_mm=use_fft_mm, use_pallas=use_pallas,
-                        mm_dtype=mm_dtype)
+    score = bank_scores(seg, np.asarray(bank), window, use_mm=use_mm)
     if topn > 1:
         d_n, s_n = topk_pooled(score, start[:, None, None], topn, pool_w)
         return d_n, s_n / lp
@@ -240,40 +221,35 @@ def matched_filter_refine_bank(seg: jnp.ndarray, start: jnp.ndarray,
             jnp.take_along_axis(score, best[..., None], axis=-1)[..., 0] / lp)
 
 
-def coherent_scan_max(seg: jnp.ndarray, bank: np.ndarray, window: int,
-                      use_pallas: bool | None = None
+def coherent_scan_max(seg: jnp.ndarray, bank: np.ndarray, window: int
                       ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """(smax [B, n_cand], sarg [B, n_cand] int32): bank_scores max-combined
-    over the hypothesis axis. On TPU the reduction happens INSIDE the fused
-    kernel (pallas deep_mf_max: outputs revisit one VMEM block across the
-    whole bank), so the [B, A, n_cand] surface never reaches HBM — at the
-    round-5 coherent cfg0 shapes that tensor alone is ~0.9 GB/call."""
-    if use_pallas is None:
-        use_pallas = (jax.default_backend() == "tpu"
-                      and seg.dtype == jnp.complex64)
-    if use_pallas:
-        from mercury_tpu.dsp.pallas_kernels import deep_mf_max
-        nfft2 = 1
-        while nfft2 < seg.shape[-1]:
-            nfft2 *= 2
-        return deep_mf_max(seg, np.asarray(bank), window, nfft2)
-    score = bank_scores(seg, bank, window)
+    over the hypothesis axis. The coherent surface sets the CONFIG_0
+    acquisition floor, so it is a float32 FFT correlation on every backend
+    (cuFFT on the GPU): never bf16 or TF32 operands. On an H100 it also
+    beat the float32 Toeplitz matmul, 5.4 against 25.9 ms of device time at
+    batch 256 (PERF.md, PR 1)."""
+    score = bank_scores(seg, bank, window, use_mm=False)
     return jnp.max(score, axis=1), jnp.argmax(score, axis=1).astype(jnp.int32)
 
 
 def bank_scores(seg: jnp.ndarray, bank: np.ndarray, window: int,
-                use_mm: bool | None = None, use_fft_mm: bool | None = None,
-                use_pallas: bool | None = None,
-                mm_dtype=None) -> jnp.ndarray:
+                use_mm: bool | None = None, mm_dtype=None) -> jnp.ndarray:
     """Normalized matched-filter scores of `bank` [A, Lp, S] against seg at
     every lag 0..2*window: the raw [B, A, n_cand] surface behind
     matched_filter_refine_bank, exposed for whole-buffer acquisition scans
-    that combine rows themselves (e.g. the round-5 coherent scan max-
-    combines the CFO axis before nomination)."""
+    that combine rows themselves (e.g. the coherent scan max-combines the
+    CFO axis before nomination).
+
+    use_mm=False is a float32 FFT correlation (jnp.fft: cuFFT on the GPU),
+    the route of the whole-buffer scans. mm_dtype is the Toeplitz route's
+    operand dtype. None means bfloat16 off the CPU: there the scores only
+    arbitrate (candidate x alias) and ~0.1% operand rounding does not move
+    the argmax."""
     if use_mm is None:
         use_mm = jax.default_backend() != "cpu"
     if seg.dtype == jnp.complex128:
-        use_mm = False
+        use_mm = False                   # the matmul path is f32-only
     a, lp, s = bank.shape
     n_cand = 2 * window + 1
     bank = np.asarray(bank)
@@ -282,10 +258,10 @@ def bank_scores(seg: jnp.ndarray, bank: np.ndarray, window: int,
         n_off = n_cand + (lp - 1) * s
         filt = np.conj(bank).reshape(a * lp, s)
         from mercury_tpu.dsp import ops as _ops
-        # bf16 MXU inputs on accelerators: the scores only arbitrate
-        # (candidate x alias), ~0.1% noise does not move the argmax
-        mmd = None if jax.default_backend() == "cpu" else jnp.bfloat16
-        c_re, c_im = _ops.corr_valid_mm_multi(seg, filt, n_off, mm_dtype=mmd)
+        if mm_dtype is None and jax.default_backend() != "cpu":
+            mm_dtype = jnp.bfloat16
+        c_re, c_im = _ops.corr_valid_mm_multi(seg, filt, n_off,
+                                              mm_dtype=mm_dtype)
         c_all = (c_re.reshape(seg.shape[0], a, lp, n_off),
                  c_im.reshape(seg.shape[0], a, lp, n_off))
 
@@ -294,42 +270,17 @@ def bank_scores(seg: jnp.ndarray, bank: np.ndarray, window: int,
             ci = c_all[1][:, :, l, l * s: l * s + n_cand]
             return jnp.sqrt(cr * cr + ci * ci)
     else:
+        # a transform of at least seg_len points keeps every scored lag
+        # (l*s + d + t < seg_len) clear of the circular wrap
         seg_len = seg.shape[-1]
         nfft2 = 1
         while nfft2 < seg_len:
             nfft2 *= 2
-        if use_pallas is None:
-            # the fused VMEM kernel is the TPU production path for the
-            # whole-buffer (deep-sync) scan; the XLA formulations below are
-            # fusion-bound there (51.6 / 47.3 ms vs the kernel's in-VMEM
-            # pipeline — docs/roofline_r3.json "deep MF" rows)
-            use_pallas = (jax.default_backend() == "tpu"
-                          and seg.dtype == jnp.complex64)
-        if use_pallas:
-            from mercury_tpu.dsp.pallas_kernels import deep_mf_score
-            return deep_mf_score(seg, np.asarray(bank), window, nfft2,
-                                 mm_dtype=mm_dtype)
         tfc = np.conj(np.fft.fft(bank, n=nfft2, axis=-1))
-        if use_fft_mm is None:
-            use_fft_mm = (jax.default_backend() != "cpu"
-                          and seg.dtype != jnp.complex128)
-        if use_fft_mm:
-            # XLA's generic FFT lowering on TPU runs ~100 GFLOP/s
-            # effective; the MXU Cooley-Tukey matmul FFT (ops.fft_mm)
-            # spends ~30x the flops but executes on the systolic array —
-            # this is the deep-sync whole-buffer correlation's dominant
-            # cost (A/B on the chip: docs/throughput_r3.json deep rows)
-            from mercury_tpu.dsp import ops as _ops
-            xf = _ops.fft_mm(seg, n=nfft2)
-            corr = _ops.fft_mm(
-                xf[:, None, None, :]
-                * jnp.asarray(tfc, dtype=xf.dtype)[None],
-                n=nfft2, inverse=True)                         # [B, A, Lp, n2]
-        else:
-            xf = jnp.fft.fft(seg, n=nfft2, axis=-1)
-            corr = jnp.fft.ifft(xf[:, None, None, :]
-                                * jnp.asarray(tfc, dtype=xf.dtype)[None],
-                                axis=-1)                       # [B, A, Lp, n2]
+        xf = jnp.fft.fft(seg, n=nfft2, axis=-1)
+        corr = jnp.fft.ifft(xf[:, None, None, :]
+                            * jnp.asarray(tfc, dtype=xf.dtype)[None],
+                            axis=-1)                           # [B, A, Lp, n2]
 
         def corr_abs(l):
             return jnp.abs(corr[:, :, l, l * s: l * s + n_cand])
@@ -383,13 +334,9 @@ def coherent_preamble_rescore(bb_ts: jnp.ndarray, cand_delay: jnp.ndarray,
     b, n_ts = bb_ts.shape
     # Decimate ONCE, then take CONTIGUOUS per-candidate slices. Every
     # candidate is a multiple of mf_d = mf_s*ts_dec (MF-scan grid), so
-    # bb_ts[idx0 + k*mf_s] == bb_dec[idx0/mf_s + k] exactly. The previous
-    # formulation gathered full-rate spans and strided them afterwards:
-    # [B, N, (Lp*S_d-1)*mf_s+1] materialized ~4x the bytes AND lowered to
-    # an element-rate-bound gather on TPU (the LDPC lesson,
-    # docs/roofline_r2.md) — measured as the dominant deep-chain cost in
-    # round 5's throughput probe. Contiguous slice-gathers run at DMA
-    # rate instead.
+    # bb_ts[idx0 + k*mf_s] == bb_dec[idx0/mf_s + k] exactly, and the
+    # slices read mf_s times fewer bytes than full-rate spans strided
+    # afterwards.
     bb_dec = bb_ts[:, ::mf_s]                      # [B, n_ts/mf_s]
     span_d = lp * s_d
     n_dec = bb_dec.shape[-1]
@@ -402,12 +349,10 @@ def coherent_preamble_rescore(bb_ts: jnp.ndarray, cand_delay: jnp.ndarray,
     seg = jax.vmap(jax.vmap(slice_one, in_axes=(None, 0)),
                    in_axes=(0, 0))(bb_dec, idx0)   # [B, N, Lp*S_d]
     bk = np.conj(np.asarray(bank)).reshape(f_n, lp * s_d)
-    # complex correlation as two real matmuls per part (MXU-friendly).
     # HIGHEST precision: at the acquisition floor the signal sits ~10 dB
     # under the noise and the coherent gain must come out of a ~2400-long
-    # dot product — default bf16 multiplies cost a measured 0.25 dB of
-    # campaign waterfall on-chip (round 5; same lesson as the round-4
-    # estimation operator)
+    # dot product; reduced-precision multiplies (bf16, TF32) cost
+    # measurable waterfall there (same reason as the estimation operator)
     c = jnp.einsum("bns,fs->bnf", seg, jnp.asarray(bk, dtype=seg.dtype),
                    precision=jax.lax.Precision.HIGHEST)
     e = jnp.sum(jnp.real(seg) ** 2 + jnp.imag(seg) ** 2, axis=-1)  # [B, N]
@@ -417,8 +362,7 @@ def coherent_preamble_rescore(bb_ts: jnp.ndarray, cand_delay: jnp.ndarray,
 
 def pilot_rescore(bb_ts: jnp.ndarray, cand_delay: jnp.ndarray,
                   cand_fidx: jnp.ndarray, bank: np.ndarray, mf_s: int,
-                  ts_dec: int, pre_span: int,
-                  use_pallas: bool | None = None) -> jnp.ndarray:
+                  ts_dec: int, pre_span: int) -> jnp.ndarray:
     """Pilot-lattice extended-preamble scoring of candidate frame starts.
 
     The preamble carries ~200 Es-units of energy at cfg0; the pilot lattice
@@ -444,25 +388,14 @@ def pilot_rescore(bb_ts: jnp.ndarray, cand_delay: jnp.ndarray,
     """
     f_n, nsym, s_d = bank.shape
     b, n_ts = bb_ts.shape
-    # decimate once + contiguous slices (see coherent_preamble_rescore:
-    # the full-rate strided gather was element-rate-bound on TPU); the
-    # <=mf_d start quantization this introduces sits well inside the
+    # decimate once + contiguous slices (see coherent_preamble_rescore);
+    # the <=mf_d start quantization this introduces sits well inside the
     # ~1/BW pilot correlation peak width
     bb_dec = bb_ts[:, ::mf_s]
     span_d = nsym * s_d
     n_dec = bb_dec.shape[-1]
     start = cand_delay + pre_span
     idx0 = jnp.clip(start // (ts_dec * mf_s), 0, max(n_dec - span_d, 0))
-
-    if use_pallas is None:
-        # even contiguous slice-gathers lower to element-rate gathers on
-        # TPU (~1.8 ms per candidate at cfg0, measured round 5) — the
-        # fused VMEM kernel slices the row in-core and reduces on the MXU
-        use_pallas = (jax.default_backend() == "tpu"
-                      and bb_ts.dtype == jnp.complex64)
-    if use_pallas:
-        from mercury_tpu.dsp.pallas_kernels import pilot_cand_score
-        return pilot_cand_score(bb_dec, idx0, cand_fidx, bank)
 
     def slice_one(row, st):
         return jax.lax.dynamic_slice(row, (st,), (span_d,))

@@ -10,7 +10,7 @@ Replicates the reference's three-thread architecture (audioio.c):
     (radio_capture_prep_thread, audioio.c:999-1069; window in runtime.cc)
 
 Device backends replace the vendored ffaudio library (the reference ships
-ALSA/Pulse/OSS/JACK/WASAPI/DSound/CoreAudio backends; the Linux/TPU target
+ALSA/Pulse/OSS/JACK/WASAPI/DSound/CoreAudio backends; the Linux target
 keeps the Linux trio, each loaded lazily with no compile-time dependency):
   - AlsaDevice: libasound via ctypes
   - PulseDevice: libpulse-simple via ctypes (ffaudio/pulse.c equivalent)
@@ -20,7 +20,7 @@ keeps the Linux trio, each loaded lazily with no compile-time dependency):
 All raise RuntimeError cleanly when their subsystem is absent;
 open_audio_device() picks the first available backend.
 
-On the TPU deployment target there is usually no sound card — the
+On a GPU server there is usually no sound card — the
 link.transport UDP/file transports carry samples instead — but radio-attached
 hosts use this module unchanged.
 """

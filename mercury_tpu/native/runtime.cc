@@ -1,6 +1,6 @@
 // mercury-tpu native runtime: the host-side streaming engine.
 //
-// TPU-native equivalents of the reference's C runtime pieces:
+// Host-side equivalents of the reference's C runtime pieces:
 //  - rt_ring:   thread-safe sample ring buffer (reference: audioio.c
 //               playback/capture rings via common/ring_buffer_posix.cc)
 //  - rt_window: sliding capture window that advances one OFDM-symbol period
@@ -9,7 +9,7 @@
 //  - rt_shm:    POSIX shared-memory byte ring for external-app payload IPC
 //               (reference: "/mercury-comm", common_defines.h:207-209)
 //
-// Exposed as a plain C ABI consumed from Python via ctypes; the TPU compute
+// Exposed as a plain C ABI consumed from Python via ctypes; the device compute
 // path stays in JAX/XLA — this module is the realtime I/O runtime around it.
 
 #include <atomic>
@@ -158,7 +158,7 @@ void rt_window_clear(rt_window *w) {
 // rt_pool: vectorized many-channel sliding-window pool (the serving-scale
 // form of rt_window: one contiguous [n_ch, window_len] circular store, bulk
 // feed, and a single-call gather of every ready channel into contiguous
-// rows for the batched TPU dispatch). Per-channel semantics are identical
+// rows for the batched device dispatch). Per-channel semantics are identical
 // to rt_window's capture-prep protocol (frames_to_read countdown per
 // committed symbol, data_ready latch, n_under on extra shifts) but the
 // window never memmoves: each channel is a ring, linearized only at gather
@@ -376,7 +376,7 @@ long rt_shm_size(rt_shm *s) {
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Sanitizer self-test (the TPU-native equivalent of the reference's
+// Sanitizer self-test (the equivalent of the reference's
 // build.sh asan/ubsan modes, README.md:60-67): build with
 //   g++ -std=c++17 -O1 -g -fsanitize=address,undefined -DRT_SELFTEST \
 //       runtime.cc -o rt_selftest -lpthread -lrt

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes
+import os
 import pathlib
 import subprocess
 
@@ -14,12 +15,20 @@ _LIB = None
 
 
 def ensure_built() -> pathlib.Path:
+    """Build libmercury_rt.so from runtime.cc when it is missing or stale.
+    Concurrent processes (parallel test workers) may build at once, so each
+    compiles to its own file and renames it into place atomically."""
     src = _DIR / "runtime.cc"
     if not _SO.exists() or _SO.stat().st_mtime < src.stat().st_mtime:
-        subprocess.run(
-            ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-             str(src), "-o", str(_SO), "-lpthread", "-lrt"],
-            check=True)
+        tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
+        try:
+            subprocess.run(
+                ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                 str(src), "-o", str(tmp), "-lpthread", "-lrt"],
+                check=True)
+            os.replace(tmp, _SO)
+        finally:
+            tmp.unlink(missing_ok=True)
     return _SO
 
 

@@ -1,19 +1,20 @@
-"""Multi-chip scaling: channel-parallel and time-parallel sharding.
+"""Multi-device scaling: channel-parallel and time-parallel sharding.
 
 The reference modem is single-process pthreads (SURVEY §2.7); distribution is
 new design here. Two first-class axes:
 
 - **channels** ('ch'): independent capture buffers / codewords — pure data
   parallelism via NamedSharding; zero communication.
-- **time** ('t'): one long capture stream split across chips — overlap-save:
-  each shard needs a halo of (preamble+frame) samples from its right
-  neighbour for sync windows and FIR tails, exchanged with ppermute over ICI.
+- **time** ('t'): one long capture stream split across devices —
+  overlap-save: each shard needs a halo of (preamble+frame) samples from its
+  right neighbour for sync windows and FIR tails, exchanged with ppermute.
 
-At multi-host scale the two compose on a 2-D mesh ('dcn', 'ch'):
-independent streams data-parallel over the slow DCN axis (zero collectives
-cross slice), each stream time-sharded over the fast ICI axis so the only
-communication — halo ppermute — stays on ICI (make_mesh_2d +
-time_sharded_receive(batch_axis='dcn')).
+The two compose on a 2-D mesh: independent streams data-parallel over the
+outer axis (zero collectives), each stream time-sharded over the inner axis,
+so the only communication — halo ppermute — names the inner axis alone
+(make_mesh_2d + time_sharded_receive(batch_axis=...)). The GPUs of one host
+reach each other all to all over NVLink, so a mesh is a plain reshape of
+the device list.
 """
 
 from __future__ import annotations
@@ -37,26 +38,13 @@ def make_mesh(n_devices: int | None = None, axis: str = "ch") -> Mesh:
 
 def make_mesh_2d(n_outer: int, n_inner: int,
                  axes: tuple[str, str] = ("dcn", "ch")) -> Mesh:
-    """2-D mesh [n_outer, n_inner] with the OUTER axis laid across the slow
-    interconnect (DCN / host boundaries) and the INNER axis across ICI.
-
-    On a real multi-slice TPU deployment jax.experimental.mesh_utils
-    assigns devices so that inner-axis neighbours share a slice (collectives
-    on the inner axis ride ICI); on a single slice — or the virtual CPU
-    mesh — a plain reshape gives the same logical topology.
-    """
+    """2-D mesh [n_outer, n_inner]: independent streams over the OUTER axis,
+    time shards of one stream over the INNER axis."""
     devs = jax.devices()
     if n_outer * n_inner > len(devs):
         raise ValueError(f"mesh {n_outer}x{n_inner} needs more than the "
                          f"{len(devs)} available devices")
-    n_slices = len({getattr(d, "slice_index", 0) for d in devs})
-    if n_slices > 1:
-        from jax.experimental import mesh_utils
-        arr = mesh_utils.create_hybrid_device_mesh(
-            (1, n_inner), (n_outer, 1), devices=devs[: n_outer * n_inner])
-        arr = arr.reshape(n_outer, n_inner)
-    else:
-        arr = np.array(devs[: n_outer * n_inner]).reshape(n_outer, n_inner)
+    arr = np.array(devs[: n_outer * n_inner]).reshape(n_outer, n_inner)
     return Mesh(arr, axes)
 
 
@@ -68,7 +56,7 @@ def shard_batch(mesh: Mesh, x, axis: str = "ch"):
 def channel_parallel_receive(rx_chain, mesh: Mesh, axis: str = "ch"):
     """Wrap RxChain.receive as an SPMD program over the channel axis.
 
-    Built with shard_map, so each chip runs the unmodified single-chip
+    Built with shard_map, so each device runs the unmodified single-device
     receive program on its rows and a cross-device op is impossible by
     construction (the local program names no mesh axes) — the compiled HLO
     contains zero collectives, asserted in
@@ -103,7 +91,7 @@ def spmd_overhead_curve(rx_chain, device_counts=(1, 2, 4, 8),
     doesn't. Chip *scaling* is claimed elsewhere, structurally: the
     compiled channel-parallel program contains zero collectives
     (analysis.hlo_collectives, asserted per device count in
-    scaling_structure_table), so per-chip work is independent by
+    scaling_structure_table), so per-device work is independent by
     construction of the compiled program.
 
     total_batch=16 keeps per-device batch >= 2 on an 8-device mesh:
@@ -146,7 +134,7 @@ def halo_exchange(x_shard: jnp.ndarray, left: int, right: int,
     """Overlap-save halo exchange inside shard_map: prepend `left` samples
     from the left neighbour's tail and append `right` samples from the right
     neighbour's head. Stream edges receive zeros (non-cyclic ppermute).
-    [..., n_local] -> [..., left + n_local + right], over ICI."""
+    [..., n_local] -> [..., left + n_local + right]."""
     n_dev = jax.lax.axis_size(axis_name)
     parts = []
     if left > 0:
@@ -164,11 +152,11 @@ def halo_exchange(x_shard: jnp.ndarray, left: int, right: int,
 def time_sharded_receive(rx_chain, mesh: Mesh, time_axis: str = "t",
                          halo: int | None = None,
                          batch_axis: str | None = None):
-    """Full RX over one long capture stream time-sharded across chips.
+    """Full RX over one long capture stream time-sharded across devices.
 
-    The TPU-native analogue of the reference's sliding capture window
-    (audioio.c:999-1069) at pod scale: the stream [B, N] is split along time
-    over the mesh; every chip extends its slice with a right halo (one frame
+    The multi-device analogue of the reference's sliding capture window
+    (audioio.c:999-1069): the stream [B, N] is split along time
+    over the mesh; every device extends its slice with a right halo (one frame
     + margin) from its neighbour via ppermute, runs the complete receive
     program (sync + CFO + demod + LDPC) on the extended window, and claims
     only frames that *start* inside its own slice — a frame seam never splits
@@ -178,12 +166,12 @@ def time_sharded_receive(rx_chain, mesh: Mesh, time_axis: str = "t",
 
     Returns a jitted f(pb [B, N]) -> RxResult with leading shard axis
     [n_dev, B]; `delay` is globalized to stream sample offsets and `crc_ok`
-    is False for chips that found no frame of their own.
+    is False for devices that found no frame of their own.
 
     batch_axis: on a 2-D mesh (make_mesh_2d), additionally shard the stream
-    batch over this (DCN) axis — independent streams per host group, each
-    time-sharded over its group's ICI axis; the halo/dedupe ppermutes name
-    only `time_axis`, so no collective ever crosses the DCN boundary.
+    batch over this outer axis — independent streams per device group, each
+    time-sharded over its group's inner axis; the halo/dedupe ppermutes name
+    only `time_axis`.
     """
     g = rx_chain.geom
     frame_interp = (g.nofdm * (rx_chain.active_nsymb + g.preamble_nsymb)
@@ -253,8 +241,7 @@ def time_sharded_receive_stream(rx_chain, mesh: Mesh, n_blocks: int,
     k+1's halo is issued with NO data dependency on block k's decode — its
     operand is a precomputed slice of the local input and its result is
     consumed only by the next scan iteration — so the compiler is free to
-    (and on TPU, with async collective-permute + the latency-hiding
-    scheduler, does) run the transfer under the decode compute. The
+    run the transfer under the decode compute. The
     structural property is machine-audited from the compiled HLO by
     scale.analysis.audit_overlap_structure.
 
@@ -345,9 +332,9 @@ def time_sharded_fir(mesh: Mesh, taps: np.ndarray, time_axis: str = "t"):
     """Streaming FIR over a time-sharded signal with overlap-save halos.
 
     Returns a jitted f(x [B, N]) -> [B, N] with N sharded across the mesh;
-    each chip convolves its slice extended by exact halos from both
+    each device convolves its slice extended by exact halos from both
     neighbours, so the result is bit-identical to the unsharded convolution
-    (the TPU-native analogue of the reference's sliding capture window,
+    (the multi-device analogue of the reference's sliding capture window,
     SURVEY §5 long-context note).
     """
     ntaps = len(taps)

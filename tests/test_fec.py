@@ -149,8 +149,7 @@ def test_mm_flooding_bit_parity_minsum():
 def test_mm_layered_corrects_and_converges_faster(rate):
     """The layered (variable-disjoint) schedule corrects the same noise the
     flooding tests use, in no more sweeps on average — the point of the
-    schedule is ~2x fewer sweeps at threshold (measured in
-    docs/ldpc_layered_r3.md)."""
+    schedule is ~2x fewer sweeps at threshold."""
     import jax.numpy as jnp
 
     u, llr, code = _threshold_llrs(rate)
@@ -225,7 +224,7 @@ def test_mm_layer_plan_covers_every_check_once():
 
 
 def test_bf16_messages_ber_close():
-    """bf16 message storage (the TPU bandwidth option) stays within ~2x of
+    """bf16 message storage (the memory-bandwidth option) stays within ~2x of
     f32 min-sum frame errors at a near-threshold noise level, on the same
     noise realizations."""
     import jax.numpy as jnp

@@ -1,4 +1,5 @@
-"""Pallas kernel correctness (interpret mode on CPU; compiled on TPU)."""
+"""Parity of the accelerator formulations (Toeplitz and DFT matmuls) with
+the direct convolution, FFT and prefix-sum references, forced on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -7,29 +8,11 @@ import pytest
 
 from mercury_tpu.core.geometry import build_geometry
 from mercury_tpu.dsp import ops
-from mercury_tpu.dsp.pallas_kernels import mix_fir_decimate
-
-
-@pytest.mark.parametrize("stride", [1, 2, 4])
-def test_fused_mix_fir_decimate(stride):
-    g = build_geometry(0, with_pre_eq=False)
-    rng = np.random.default_rng(0)
-    pb = jnp.asarray(rng.standard_normal((3, 8192)).astype(np.float32))
-    taps = jnp.asarray(g.fir_rx_ts.astype(np.float32))
-    out = mix_fir_decimate(pb, taps, g.fs, g.fc, stride=stride, interpret=True)
-    # the kernel's oscillator is host-built with float64 phase; match it
-    t = np.arange(8192, dtype=np.float64)
-    ph = (2 * np.pi * g.fc / g.fs) * t
-    osc = (np.sqrt(2) * (np.cos(ph) + 1j * np.sin(ph))).astype(np.complex64)
-    iq = pb * jnp.asarray(osc)
-    ref = ops.fir_same(iq, taps)[:, ::stride]
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("stride", [2, 4])
 def test_fir_same_strided_mm(stride):
-    """Banded-Toeplitz matmul FIR (MXU path) == direct strided conv."""
+    """Banded-Toeplitz matmul FIR == direct strided conv."""
     g = build_geometry(0, with_pre_eq=False)
     rng = np.random.default_rng(1)
     x = jnp.asarray((rng.standard_normal((3, 9173))
@@ -42,7 +25,7 @@ def test_fir_same_strided_mm(stride):
 
 
 def test_fir_decimate_mm():
-    """MXU decimating segment FIR == conv fir_decimate_segment."""
+    """Matmul decimating segment FIR == conv fir_decimate_segment."""
     g = build_geometry(0, with_pre_eq=False)
     rng = np.random.default_rng(2)
     seg = jnp.asarray(rng.standard_normal((3, 2311)).astype(np.float32))
@@ -55,7 +38,7 @@ def test_fir_decimate_mm():
 
 @pytest.mark.parametrize("length", [16, 144, 512])  # 512 > k_blk: gather path
 def test_box_sum_valid_mm_parity(length):
-    """MXU banded-matmul sliding box sums == cumsum-difference reference,
+    """Banded-matmul sliding box sums == cumsum-difference reference,
     real and complex, including the window-wider-than-block gather branch."""
     rng = np.random.default_rng(3)
     x = (rng.standard_normal((2, 4000))
@@ -121,38 +104,6 @@ def test_fir_decimate_mix_mm_parity():
                                atol=3e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("n,inverse", [(16384, False), (16384, True),
-                                       (8192, False), (256, True),
-                                       (1088, False)])
-def test_fft_mm_matches_fft(n, inverse):
-    """MXU Cooley-Tukey matmul FFT == jnp.fft, both directions, including
-    zero-padding of short inputs and non-2^k-by-128 factorizations."""
-    rng = np.random.default_rng(8)
-    x = (rng.standard_normal((3, n - 7))
-         + 1j * rng.standard_normal((3, n - 7))).astype(np.complex64)
-    got = np.asarray(ops.fft_mm(jnp.asarray(x), n=n, inverse=inverse))
-    ref = np.fft.ifft(x, n=n) if inverse else np.fft.fft(x, n=n)
-    scale = np.max(np.abs(ref))
-    np.testing.assert_allclose(got, ref.astype(np.complex64),
-                               atol=2e-5 * max(scale, 1e-9), rtol=0)
-
-
-def test_fft_mm_roundtrip_correlation():
-    """FFT-correlation computed with fft_mm == computed with jnp.fft — the
-    deep-sync global matched filter substitutes one for the other on TPU."""
-    rng = np.random.default_rng(9)
-    n, s = 2048, 136
-    seg = (rng.standard_normal((4, n))
-           + 1j * rng.standard_normal((4, n))).astype(np.complex64)
-    tmpl = (rng.standard_normal(s) + 1j * rng.standard_normal(s))
-    tfc = np.conj(np.fft.fft(tmpl, n=n)).astype(np.complex64)
-    ref = np.fft.ifft(np.fft.fft(seg, axis=-1) * tfc, axis=-1)
-    xf = ops.fft_mm(jnp.asarray(seg))
-    got = np.asarray(ops.fft_mm(xf * jnp.asarray(tfc), inverse=True))
-    np.testing.assert_allclose(got, ref.astype(np.complex64),
-                               atol=3e-4 * np.max(np.abs(ref)))
-
-
 def test_ofdm_demod_dft_mm_parity():
     """ofdm_demod's fused DFT-matmul path (dft_mm with the carrier-depad
     fold) == the jnp.fft path, forced on CPU via use_mm."""
@@ -181,128 +132,8 @@ def test_dft_mm_matches_fft_inverse():
     np.testing.assert_allclose(got, ref.astype(np.complex64), atol=3e-4)
 
 
-def test_matched_filter_bank_fft_mm_parity():
-    """The TPU deep-sync branch (FFT correlation computed via ops.fft_mm)
-    == the jnp.fft branch: same refined delays, near-identical scores.
-    Forced on CPU via use_fft_mm so the TPU-only default is test-covered."""
-    from mercury_tpu.modem import sync
-
-    rng = np.random.default_rng(12)
-    lp, s = 4, 136
-    bank = (rng.standard_normal((5, lp, s))
-            + 1j * rng.standard_normal((5, lp, s))).astype(np.complex64)
-    window = 600
-    seg_len = 2 * window + lp * s
-    seg = (rng.standard_normal((6, seg_len))
-           + 1j * rng.standard_normal((6, seg_len))).astype(np.complex64)
-    tmpl_cat = bank[2].reshape(-1)
-    seg[1, 317: 317 + lp * s] += 4.0 * tmpl_cat
-    seg_j = jnp.asarray(seg)
-    start = jnp.zeros(6, jnp.int32)
-    d_fft, s_fft = sync.matched_filter_refine_bank(
-        seg_j, start, bank, window, use_mm=False, use_fft_mm=False)
-    d_mm, s_mm = sync.matched_filter_refine_bank(
-        seg_j, start, bank, window, use_mm=False, use_fft_mm=True)
-    np.testing.assert_array_equal(np.asarray(d_fft), np.asarray(d_mm))
-    np.testing.assert_allclose(np.asarray(s_fft), np.asarray(s_mm),
-                               rtol=5e-4, atol=5e-4)
-    assert int(np.asarray(d_mm)[1, 2]) == 317
-
-
-def test_deep_mf_score_kernel_parity():
-    """The fused deep-sync matched-filter Pallas kernel == the XLA FFT
-    scoring path of matched_filter_refine_bank: same argmax lags,
-    near-identical normalized scores (interpret mode on CPU)."""
-    from mercury_tpu.dsp.pallas_kernels import deep_mf_score
-    from mercury_tpu.modem import sync
-
-    rng = np.random.default_rng(15)
-    a, lp, s = 3, 4, 96
-    bank = (rng.standard_normal((a, lp, s))
-            + 1j * rng.standard_normal((a, lp, s))).astype(np.complex64)
-    window = 280
-    seg_len = 2 * window + lp * s
-    nfft = 1
-    while nfft < seg_len:
-        nfft *= 2
-    seg = (rng.standard_normal((5, seg_len))
-           + 1j * rng.standard_normal((5, seg_len))).astype(np.complex64)
-    seg[2, 150: 150 + lp * s] += 5.0 * bank[1].reshape(-1)
-    seg[4, : 40] = 0.0                       # exercise the silence floor
-    seg_j = jnp.asarray(seg)
-    start = jnp.zeros(5, jnp.int32)
-    d_ref, s_ref = sync.matched_filter_refine_bank(
-        seg_j, start, bank, window, use_mm=False, use_fft_mm=False)
-    score = deep_mf_score(seg_j, bank, window, nfft, interpret=True)
-    best = jnp.argmax(score, axis=-1)
-    s_best = jnp.take_along_axis(score, best[..., None], axis=-1)[..., 0] / lp
-    np.testing.assert_array_equal(np.asarray(d_ref), np.asarray(best))
-    np.testing.assert_allclose(np.asarray(s_best), np.asarray(s_ref),
-                               rtol=1e-3, atol=1e-3)
-    assert int(np.asarray(best)[2, 1]) == 150
-
-
-def test_deep_mf_score_grows_undersized_transform():
-    """A transform too small for the padded lag support (or the segment)
-    no longer asserts: deep_mf_score grows nfft internally and still
-    matches the XLA scoring path (ADVICE r3: small decimated symbol
-    length + buffer just under a power of two)."""
-    from mercury_tpu.dsp.pallas_kernels import deep_mf_score
-    from mercury_tpu.modem import sync
-
-    rng = np.random.default_rng(23)
-    a, lp, s = 2, 4, 40                       # s < 128: nc_pad can overflow
-    bank = (rng.standard_normal((a, lp, s))
-            + 1j * rng.standard_normal((a, lp, s))).astype(np.complex64)
-    window = 200
-    seg_len = 2 * window + lp * s
-    seg = (rng.standard_normal((3, seg_len))
-           + 1j * rng.standard_normal((3, seg_len))).astype(np.complex64)
-    seg[1, 77: 77 + lp * s] += 5.0 * bank[0].reshape(-1)
-    seg_j = jnp.asarray(seg)
-    start = jnp.zeros(3, jnp.int32)
-    d_ref, s_ref = sync.matched_filter_refine_bank(
-        seg_j, start, bank, window, use_mm=False, use_fft_mm=False)
-    # nfft=256 violates both `nfft >= seg_len` and the padded-lag-support
-    # bound — before the fix this was an AssertionError
-    score = deep_mf_score(seg_j, bank, window, nfft=256, interpret=True)
-    best = jnp.argmax(score, axis=-1)
-    s_best = jnp.take_along_axis(score, best[..., None], axis=-1)[..., 0] / lp
-    np.testing.assert_array_equal(np.asarray(d_ref), np.asarray(best))
-    np.testing.assert_allclose(np.asarray(s_best), np.asarray(s_ref),
-                               rtol=1e-3, atol=1e-3)
-    assert int(np.asarray(best)[1, 0]) == 77
-
-
-def test_matched_filter_bank_pallas_branch_parity():
-    """matched_filter_refine_bank(use_pallas=True) == the FFT branch at the
-    API level: identical delays, matching scores (interpret on CPU)."""
-    from mercury_tpu.modem import sync
-
-    rng = np.random.default_rng(16)
-    a, lp, s = 2, 3, 64
-    bank = (rng.standard_normal((a, lp, s))
-            + 1j * rng.standard_normal((a, lp, s))).astype(np.complex64)
-    window = 200
-    seg_len = 2 * window + lp * s
-    seg = (rng.standard_normal((4, seg_len))
-           + 1j * rng.standard_normal((4, seg_len))).astype(np.complex64)
-    seg[0, 88: 88 + lp * s] += 4.0 * bank[0].reshape(-1)
-    seg_j = jnp.asarray(seg)
-    start = jnp.asarray([0, 10, 20, 30], jnp.int32)
-    d_ref, s_ref = sync.matched_filter_refine_bank(
-        seg_j, start, bank, window, use_mm=False, use_fft_mm=False,
-        use_pallas=False)
-    d_p, s_p = sync.matched_filter_refine_bank(
-        seg_j, start, bank, window, use_mm=False, use_pallas=True)
-    np.testing.assert_array_equal(np.asarray(d_ref), np.asarray(d_p))
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_ref),
-                               rtol=1e-3, atol=1e-3)
-    assert int(np.asarray(d_p)[0, 0]) == 88
-
-
 def test_matched_filter_bank_mm_parity():
-    """MXU banded-matmul MF correlation == FFT correlation: same refined
+    """Banded-matmul MF correlation == FFT correlation: same refined
     delays and near-identical scores for an alias-rotated template bank."""
     from mercury_tpu.modem import sync
 
@@ -331,7 +162,7 @@ def test_matched_filter_bank_mm_parity():
 
 
 def test_matched_filter_bank_mm_parity_low_snr():
-    """ADVICE r1: the bf16 MXU scores also arbitrate the refined sync delay.
+    """The bf16 matmul scores also arbitrate the refined sync delay.
     At near-threshold SNR (template amplitude ~ noise std) the mm path must
     still pick the same lag as the f32 FFT path — a one-step disagreement
     here would shift frame slicing by mf_d samples on the decode path."""
@@ -363,7 +194,7 @@ def test_matched_filter_bank_mm_parity_low_snr():
 
 @pytest.mark.parametrize("decim", [1, 4])
 def test_schmidl_cox_mm_matches_cumsum(decim):
-    """schmidl_cox_metric: the MXU box-sum route and the prefix-sum route
+    """schmidl_cox_metric: the matmul box-sum route and the prefix-sum route
     compute the same metric and lag-phase CFO (decim=4 is the rx path,
     decim=1 the obs.py diagnostics path with wide windows)."""
     from mercury_tpu.channel import sim

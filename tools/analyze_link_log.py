@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Link-session log forensics — the TPU framework's equivalent of the
+"""Link-session log forensics — this framework's equivalent of the
 reference's tools/analyze_turboshift_log.py (event-timeline extraction from
 verbose modem logs, SURVEY §4.4).
 

@@ -48,11 +48,6 @@ def main() -> int:
     ap.add_argument("--out", default="docs/audio_stress_r5.json")
     args = ap.parse_args()
 
-    import jax
-
-    if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-
     from mercury_tpu.link import protocol as P
     from mercury_tpu.link.node import ArqConfig, ArqNode
     from mercury_tpu.native.audio import (AudioBurstTransport, AudioIO,

@@ -33,8 +33,6 @@ def main() -> int:
 
     import jax
 
-    if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-        jax.config.update("jax_platforms", "cpu")
 
     from mercury_tpu.channel.ber import BerHarness
 

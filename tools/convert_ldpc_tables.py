@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Convert the reference LDPC adjacency tables (dumped by tools/golden_gen as
 raw binary) into mercury_tpu/data/ldpc_tables.npz, and derive the dense GF(2)
-generator blocks used by the TPU encoder.
+generator blocks used by the matmul encoder.
 
 Provenance: the adjacency data originates from the reference's
 source/physical_layer/mercury_normal_*.cc constant tables (IRA LDPC, N=1600).

@@ -1,6 +1,6 @@
 // Golden-vector generator: compiles the reference PHY (/root/reference, in
 // place) and dumps exact intermediate/final arrays for parity testing of the
-// TPU reimplementation. Output: tests/golden/<name>.bin (raw little-endian)
+// JAX reimplementation. Output: tests/golden/<name>.bin (raw little-endian)
 // plus tests/golden/meta.json describing shapes/dtypes.
 //
 // Nothing from the reference is copied into the repo; this tool links against

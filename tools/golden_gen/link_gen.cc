@@ -1,7 +1,7 @@
 // Link-layer golden generator: drives the REFERENCE's own ARQ
 // serialization code (cl_arq_controller::send / add_message_control,
 // arq_common.cc:2025-2102, arq_commander.cc:287-369) and dumps the exact
-// wire bytes (and one passband frame) so the TPU repo can prove byte
+// wire bytes (and one passband frame) so this repo can prove byte
 // interop against the reference binary rather than against its own
 // re-reading of the spec.
 //

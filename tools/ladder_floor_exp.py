@@ -140,8 +140,6 @@ def main() -> int:
 
     import jax
 
-    if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-        jax.config.update("jax_platforms", "cpu")
 
     import time
     for v in args.variants:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """ARQ link benchmark: effective throughput vs channel SNR.
 
-The TPU-native equivalent of the reference's tools/mercury_benchmark.py
+This repo's equivalent of the reference's tools/mercury_benchmark.py
 (sweep/stress/adaptive sub-commands, measurement = delivered bytes over the
 session window — SURVEY §4.3), but over the deterministic simulated channel
 so a full sweep runs in minutes instead of hours of wall-clock audio.

@@ -47,8 +47,6 @@ def main() -> int:
 
     import jax
 
-    if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-        jax.config.update("jax_platforms", "cpu")
     platform = jax.devices()[0].platform
 
     import jax.numpy as jnp

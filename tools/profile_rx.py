@@ -69,7 +69,7 @@ def main():
     mix_fn = jax.jit(lambda pb: rx.mix(pb, 0.0))
     iq, t_mix = timeit("mix (full buffer)", mix_fn, buf)
 
-    fir_strided = (ops.fir_same_strided_mm if rx._mxu_fir
+    fir_strided = (ops.fir_same_strided_mm if rx._mm_fir
                    else ops.fir_same_strided)
     firn_fn = jax.jit(lambda x: fir_strided(x, rx._fir_ts, g.interp))
     bbn, t_fir = timeit(f"fir_same_strided /{g.interp} (TS)", firn_fn, iq)
